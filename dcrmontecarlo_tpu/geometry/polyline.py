@@ -1,4 +1,4 @@
-"""SoA polyline boundary representation (TPU-native rebuild of C1-C3).
+"""SoA polyline boundary representation (JAX rebuild of C1-C3).
 
 The reference stores a polyline as a single ``(N, 2)`` vertex chain and
 scans it per query with ``torch.jit.script`` kernels

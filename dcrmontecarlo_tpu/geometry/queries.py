@@ -1,11 +1,11 @@
-"""Batched polyline queries (TPU-native rebuild of the reference's
+"""Batched polyline queries (JAX rebuild of the reference's
 ``torch.jit.script`` geometry kernels, ``geometry/PolylinesSimple.py:13-197``).
 
 All queries are *walker-batched*: they take ``(W,)`` coordinate arrays and
 reduce over the ``(S,)`` segment axis as a ``(W, S)`` broadcast that XLA
-fuses into the reduction (no host loop, no per-walker dispatch). A fused
-Pallas kernel with the segment soup resident in VMEM backs the same
-signatures for large ``S`` (see ``dcrmontecarlo_tpu/ops``).
+fuses into the reduction (no host loop, no per-walker dispatch). The fused
+walk kernel (``ops/pallas_walk.py``) runs the same queries on register
+arrays, unrolled over the segments or looped over a segment table.
 
 Deliberate fixes vs the reference (SURVEY.md §3.3, §5):
 
@@ -47,9 +47,8 @@ def cross2(ax, ay, bx, by):
 def _min_by(key, payloads, axis):
     """Variadic min-reduction: ``(min key, payloads at the min)``.
 
-    Compiles to a single fused XLA reduce — unlike ``argmin`` + gather,
-    which lowers to a serialized per-lane gather on TPU and dominated the
-    step time in profiling.
+    Compiles to a single fused XLA reduce instead of ``argmin`` plus a
+    per-lane gather.
     """
     operands = (key,) + tuple(payloads)
     inits = (jnp.asarray(jnp.inf, key.dtype),) + tuple(

@@ -5,7 +5,7 @@ The reference ships the heightmap->polyline builder
 surface topography (``x_topo``/``z_topo`` interpolation, cell 3) but never
 runs the MC solver over non-flat terrain. This model closes that gap: a
 Neumann surface following ``height(x)`` with many segments (exercising the
-SMEM-table Pallas path), Dirichlet far-field sides/bottom, electrodes
+segment-table kernel path), Dirichlet far-field sides/bottom, electrodes
 draped on the terrain and nudged inward along the local downhill normal.
 """
 

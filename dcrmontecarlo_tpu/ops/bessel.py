@@ -1,10 +1,11 @@
-"""Modified Bessel functions I0/K0 as pure-jnp TPU primitives.
+"""Modified Bessel functions I0/K0 as pure-jnp elementwise functions.
 
 The reference uses host-side ``scipy.special.i0 / k0`` inside the walk loop
 (reference ``solvers/utils.py:1,21-26,43-44``), which forces a device->host
 round trip per call. Here they are polynomial approximations (Abramowitz &
-Stegun 9.8.1-9.8.8) evaluated on the VPU, so the screened Green's function
-math stays fused inside the compiled step function.
+Stegun 9.8.1-9.8.8) evaluated elementwise, so the screened Green's
+function math stays fused inside the compiled step function and lowers
+unchanged into the Pallas walk kernel.
 
 Exponentially-scaled variants ``i0e``/``k0e`` are provided because
 ``I0(x) ~ e^x`` overflows float32 near ``x = 88``; the solver only ever

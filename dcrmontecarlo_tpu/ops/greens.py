@@ -1,6 +1,6 @@
-"""Green's functions for the 2D ball, jnp-traceable (TPU-resident).
+"""Green's functions for the 2D ball, jnp-traceable.
 
-TPU-native rebuild of the Green's-function math in reference
+JAX rebuild of the Green's-function math in reference
 ``solvers/utils.py:5-61``. Unlike the reference these are pure jnp
 functions of arrays (no scipy host calls, no python scalars), so they fuse
 into the compiled walker step.

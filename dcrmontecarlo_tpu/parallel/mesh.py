@@ -1,16 +1,18 @@
-"""Multi-chip data-parallel solve over a TPU mesh.
+"""Multi-device data-parallel solve over a 1-D device mesh.
 
 The reference is single-process, single-thread Python (SURVEY.md §2); this
-module supplies its missing scale axis the TPU-native way: walker slots are
-sharded over a 1D ``jax.sharding.Mesh`` with ``shard_map``, each device
-runs the *entire* walk loop independently on its shard (walkers never
-communicate — no per-iteration collectives, so device loops don't sync),
-and a single ``psum`` over ICI combines the per-point
-``(sum, sum-of-squares, count)`` triples at the end. Seeds are stratified
-per shard by folding the device index into the RNG key. Multi-host (DCN)
-runs through the same mesh: call :func:`initialize_distributed` on every
-process first (recipe in its docstring; exercised end-to-end by the
-2-process CPU mesh test in ``tests/test_multihost.py``).
+module supplies its missing scale axis: walker slots are sharded over a 1D
+``jax.sharding.Mesh`` with ``shard_map``, each device runs the *entire*
+walk loop independently on its shard (walkers never communicate — no
+per-iteration collectives, so device loops don't sync), and a single
+``psum`` combines the per-point ``(sum, sum-of-squares, count)`` triples
+at the end. Seeds are stratified per shard by folding the device index
+into the RNG key. The mesh is 1-D in ``jax.devices()`` order: one process
+drives every GPU of a host, which NVLink joins all to all, so no device
+order matters. Several hosts run through the same mesh: call
+:func:`initialize_distributed` on every process first (recipe in its
+docstring; exercised end-to-end by the 2-process CPU mesh test in
+``tests/test_multihost.py``).
 """
 
 from __future__ import annotations
@@ -29,22 +31,24 @@ from ..solver.wost import RawSolveOut, SolverOptions, WoStSolver
 __all__ = ["ShardedWoStSolver", "make_mesh", "initialize_distributed"]
 
 
-def initialize_distributed(coordinator_address: Optional[str] = None,
-                           num_processes: Optional[int] = None,
-                           process_id: Optional[int] = None,
+def initialize_distributed(coordinator_address: str,
+                           num_processes: int,
+                           process_id: int,
                            local_device_count: Optional[int] = None):
-    """Join a multi-host (DCN) job, then build meshes as usual.
+    """Join a multi-process job, then build meshes as usual.
 
-    Multi-host runs the SAME code as single-host: every process calls
-    this once before any other JAX work, then ``make_mesh()`` (which
-    sees the GLOBAL device list) and ``ShardedWoStSolver`` behave
-    exactly as on one host — walkers never communicate, so the only
-    cross-host traffic is the final ``psum`` of per-point moment
-    triples, which rides DCN fine at (n_src x n_points)-float sizes.
+    The four GPUs of one host need none of this: one process sees them
+    all in ``jax.devices()``, and ``make_mesh(4)`` spans them. Several
+    processes (one per host) run the SAME code as one: every process
+    calls this once before any other JAX work, then ``make_mesh()``
+    (which sees the GLOBAL device list) and ``ShardedWoStSolver`` behave
+    exactly as in one process — walkers never communicate, so the only
+    cross-process traffic is the final ``psum`` of per-point moment
+    triples, at (n_src x n_points)-float sizes.
 
-    On TPU pods the three arguments are inferred from the environment
-    (``jax.distributed.initialize()`` with no args); pass them
-    explicitly for CPU/GPU clusters:
+    Nothing infers the arguments from the environment: pass the
+    coordinator's address (any free port), the process count and this
+    process's index:
 
         # host 0                          # host 1
         initialize_distributed(           initialize_distributed(
@@ -59,12 +63,9 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
     """
     if local_device_count is not None:
         jax.config.update("jax_num_cpu_devices", int(local_device_count))
-    kwargs = {}
-    if coordinator_address is not None:
-        kwargs = dict(coordinator_address=coordinator_address,
-                      num_processes=num_processes,
-                      process_id=process_id)
-    jax.distributed.initialize(**kwargs)
+    jax.distributed.initialize(coordinator_address=coordinator_address,
+                               num_processes=num_processes,
+                               process_id=process_id)
     return len(jax.devices())
 
 
@@ -109,6 +110,9 @@ class ShardedWoStSolver(WoStSolver):
         # _build_solve_fn_pallas_sharded); the XLA-sharded builder warns
         # at build time (one while_loop per device touches every lane
         # every step, so packing cannot help there)
+
+    def _platform(self) -> str:
+        return self.mesh.devices.flat[0].platform
 
     def _slot_layout(self, n_points: int, n_walks: int):
         """Like the base layout but with K divisible by the mesh size."""
@@ -298,7 +302,7 @@ class ShardedWoStSolver(WoStSolver):
             sums = final.acc_sum.reshape(n_src, k_local, n_points).sum(axis=1)
             sumsq = final.acc_sumsq.reshape(n_src, k_local, n_points).sum(axis=1)
             steps = final.total_steps
-            # one collective per solve, over ICI
+            # one collective per solve
             sums = jax.lax.psum(sums, axis)
             sumsq = jax.lax.psum(sumsq, axis)
             steps = jax.lax.psum(steps, axis)
@@ -307,20 +311,22 @@ class ShardedWoStSolver(WoStSolver):
             trunc_absw = jax.lax.psum(final.trunc_absw, axis)
             wmax = jax.lax.pmax(final.wmax, axis)
             bmax = jax.lax.pmax(final.bmax, axis)
+            done = (jnp.float32(jnp.nan) if use_split else jax.lax.psum(
+                jnp.sum(final.n_done).astype(jnp.float32), axis))
             return (sums, sumsq, steps, iters, trunc_n, trunc_absw, wmax,
-                    bmax)
+                    bmax, done)
 
         mapped = jax.shard_map(
             shard_body,
             mesh=self.mesh,
             in_specs=(P(), P(axis, None), P()),
-            out_specs=(P(), P(), P(), P(), P(), P(), P(), P()),
+            out_specs=(P(),) * 9,
         )
 
         @jax.jit
         def run(points, key):
             (sums, sumsq, steps, iters, trunc_n, trunc_absw, wmax,
-             bmax) = mapped(points, quotas_km, key)
+             bmax, done) = mapped(points, quotas_km, key)
             mean = sums / n_walks
             var = jnp.maximum(sumsq / n_walks - mean * mean, 0.0)
             stderr = jnp.sqrt(var / n_walks)
@@ -328,7 +334,7 @@ class ShardedWoStSolver(WoStSolver):
                 mean=mean, stderr=stderr, walk_sum=sums, walk_sumsq=sumsq,
                 total_steps=steps, iterations=iters,
                 truncated_walks=trunc_n, truncated_weight=trunc_absw,
-                max_weight=wmax, max_banked=bmax,
+                max_weight=wmax, max_banked=bmax, finished_walks=done,
             )
 
         return run
@@ -538,10 +544,9 @@ class ShardedWoStSolver(WoStSolver):
             # active-count flag carried from the previous iteration), not
             # per-device: every device must execute the same number of
             # pallas_call invocations — interpret mode takes a hard
-            # cross-device barrier per call, and lockstep launches also
-            # keep real-TPU shards from idling at the final psum. Extra
-            # launches on an early-drained device are ~free: the kernel's
-            # early exit returns immediately when its quota is gone.
+            # cross-device barrier per call. Extra launches on an
+            # early-drained device are ~free: the kernel's early exit
+            # returns immediately when its quota is gone.
             def _global_active(state):
                 return jax.lax.psum(
                     jnp.sum((state["quota"] > 0).astype(jnp.int32)), axis
@@ -673,21 +678,23 @@ class ShardedWoStSolver(WoStSolver):
             trunc_w = jax.lax.psum(jnp.sum(state["tw"]), axis)
             wmax = jax.lax.pmax(jnp.max(state["wmax"]), axis)
             bmax = jax.lax.pmax(jnp.max(state["bmax"]), axis)
+            done = (jnp.float32(jnp.nan) if use_split else jax.lax.psum(
+                jnp.sum(state["ndone"]).astype(jnp.float32), axis))
             return (sums, sumsq, steps, iters, trunc_n, trunc_w, wmax,
-                    bmax)
+                    bmax, done)
 
         mapped = jax.shard_map(
             shard_body,
             mesh=self.mesh,
             in_specs=(P(), P(axis, None), P()),
-            out_specs=(P(), P(), P(), P(), P(), P(), P(), P()),
+            out_specs=(P(),) * 9,
             check_vma=False,  # pallas_call outputs carry no vma metadata
         )
 
         @jax.jit
         def run(points, key):
             (sums, sumsq, steps, iters, trunc_n, trunc_w, wmax,
-             bmax) = mapped(points, quotas_km, key)
+             bmax, done) = mapped(points, quotas_km, key)
             mean = sums / n_walks
             var = jnp.maximum(sumsq / n_walks - mean * mean, 0.0)
             stderr = jnp.sqrt(var / n_walks)
@@ -695,7 +702,7 @@ class ShardedWoStSolver(WoStSolver):
                 mean=mean, stderr=stderr, walk_sum=sums, walk_sumsq=sumsq,
                 total_steps=steps, iterations=iters,
                 truncated_walks=trunc_n, truncated_weight=trunc_w,
-                max_weight=wmax, max_banked=bmax,
+                max_weight=wmax, max_banked=bmax, finished_walks=done,
             )
 
         return run

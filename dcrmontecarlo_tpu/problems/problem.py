@@ -1,4 +1,4 @@
-"""PDE problem definition (TPU-native rebuild of the solver-construction
+"""PDE problem definition (JAX rebuild of the solver-construction
 half of reference ``WostSolver_2D.__init__`` + ``buildModifiedSigma``,
 ``solvers/WoStSolver.py:22-138``).
 

@@ -1,6 +1,6 @@
 """Radial source/interior-point samplers for the 2D ball.
 
-TPU-native rebuild of the reference's rejection-sampled radius caches
+JAX rebuild of the reference's rejection-sampled radius caches
 (``solvers/utils.py:64-217``). The reference fills a host-side 10k-entry
 cache by rejection sampling a *wrong* density (``-log r`` instead of the
 Green's-weighted area density ``-r log(r/R)``; see SURVEY.md §5 quirk 2-3)
@@ -15,10 +15,10 @@ sampling:
   no rejection, no cache, no bias.
 
 * **Screened Green's radial density** ``p(r) ∝ r G_s(r; R, sigma_bar)`` is
-  not scale invariant (its shape depends on ``z = R sqrt(sigma_bar)``), and
-  per-lane table gathers serialize badly on TPU (and are unavailable in
-  Pallas kernels), so it ships two gather-free device samplers sharing one
-  draw convention:
+  not scale invariant (its shape depends on ``z = R sqrt(sigma_bar)``). A
+  per-lane table gather would need the table inside the fused walk kernel,
+  so it ships two gather-free samplers, plain ``jnp`` code shared by the
+  XLA step and the kernel, with one draw convention:
 
   - :func:`sample_screened_radius_exact` / ``_exact_rejection`` — exact
     two-regime rejection (``screened_sampler="exact"``), weight 1 on
@@ -257,12 +257,13 @@ def _exact_rejection(draw, R, sigma_bar, max_rounds: int,
         acc0 = ua0 < A0
         w0 = jnp.ones_like(s0)
 
-    # the accepted mask rides the loop carry as int32: this function also
-    # runs inside the Pallas kernel, where Mosaic cannot round-trip i1
-    # vectors through loop carries
+    # the accepted mask rides the loop carry as int32, and "some lane
+    # still rejecting" is a min over it: this function also runs inside
+    # the Pallas kernel, whose Triton lowering reduces with min/max/sum
+    # only
     def cond(carry):
         i, s_cur, w_cur, acc_i = carry
-        return (i < max_rounds) & jnp.any(acc_i == 0)
+        return (i < max_rounds) & (jnp.min(acc_i) == 0)
 
     def body(carry):
         i, s_cur, w_cur, acc_i = carry
@@ -317,7 +318,7 @@ def sample_screened_radius_fast(seed, counter, R, sigma_bar,
                                 max_rounds: int = 64):
     """Exact screened-radius sampling with the counter-hash RNG
     (:mod:`.rng`) — identical math to :func:`sample_screened_radius_exact`
-    but compiles in seconds instead of minutes inside while-loops.
+    with the solver's default RNG instead of ``jax.random``.
 
     Args:
         seed: u32 scalar. counter: u32 scalar (e.g. walk-loop step index).
@@ -340,9 +341,8 @@ def sample_screened_radius_fast(seed, counter, R, sigma_bar,
 def sample_screened_radius_exact(key, R, sigma_bar, max_rounds: int = 64):
     """Exact, gather-free sampling of the screened Green's-weighted radius.
 
-    TPU-friendly replacement for the table sampler: per-lane dynamic table
-    gathers serialize badly on TPU (and are unavailable inside Pallas
-    kernels), so this draws *exactly* from ``p(x) ∝ x [K0(x) - c I0(x)]``
+    Gather-free replacement for the table sampler: this draws *exactly*
+    from ``p(x) ∝ x [K0(x) - c I0(x)]``
     on ``(0, z)`` (``x = r sqrt(sigma_bar)``, ``z = R sqrt(sigma_bar)``,
     ``c = K0(z)/I0(z)``) via two-regime rejection with vectorized redraws:
 

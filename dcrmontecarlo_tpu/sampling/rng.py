@@ -1,13 +1,12 @@
-"""Fast counter-based RNG for the XLA walk loop.
+"""Fast counter-based RNG for the walk loop.
 
-``jax.random`` threefry is the gold standard, but XLA compiles a threefry
-call inside a ``lax.while_loop`` in *minutes* on the target TPU toolchain
-(measured: 345 s for one threefry-in-while kernel vs 0.5 s without). The
-walk loop needs one fresh batch of uniforms per iteration, so the solver
-defaults to this stateless SplitMix32-style counter hash: ~12 elementwise
-u32 ops per value, compiles instantly, and passes the framework's
-statistical solver gates (which compare MC estimates against analytic
-solutions at 4-sigma — exactly the property MC needs from its RNG).
+The walk loop needs one fresh batch of uniforms per iteration, so the
+solver defaults to this stateless SplitMix32-style counter hash: ~12
+elementwise u32 ops per value, computed the same way by the XLA step and,
+in registers, by the fused walk kernel (``ops/pallas_walk.py``) — the two
+backends draw identical uniforms. It passes the framework's statistical
+solver gates (which compare MC estimates against analytic solutions at
+4-sigma — exactly the property MC needs from its RNG).
 
 Stream layout: ``value = mix3(lane ^ C1*stream ^ mix3(seed ^ C2*counter))``
 — distinct walks/steps/streams decorrelate through two full avalanche
@@ -22,10 +21,9 @@ __all__ = ["mix32", "counter_uniform", "counter_uniform_lanes",
            "C_STREAM", "C_COUNTER"]
 
 # np.uint32, NOT jnp.uint32: module-level jnp constants initialize the
-# JAX backend (and grab the TPU device lock) at package import, before
-# any jax.config.update("jax_platforms", ...) can run — and Pallas
-# kernels cannot capture pre-created device arrays. numpy scalars
-# promote identically inside traced arithmetic.
+# JAX backend at package import, before a caller can choose the platform
+# — and Pallas kernels cannot capture pre-created device arrays. numpy
+# scalars promote identically inside traced arithmetic.
 _M1 = np.uint32(0x7FEB352D)
 _M2 = np.uint32(0x846CA68B)
 _C_STREAM = np.uint32(0x9E3779B9)   # golden-ratio odd constant

@@ -1,6 +1,6 @@
 """SoA walker state for the batched Walk-on-Stars loop.
 
-TPU-native replacement for the reference's per-walk Python locals
+Replacement for the reference's per-walk Python locals
 (``solvers/WoStSolver.py:188-195``): every scalar the interpreted loop kept
 per walk becomes a ``(W,)`` lane of a structure-of-arrays pytree carried
 through ``lax.while_loop``. Walker *slots* are recycled: each slot owns a

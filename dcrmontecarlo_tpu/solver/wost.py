@@ -1,4 +1,4 @@
-"""Batched Walk-on-Stars solver (TPU-native rebuild of C10,
+"""Batched Walk-on-Stars solver (JAX rebuild of C10,
 ``solvers/WoStSolver.py:162-353``).
 
 The reference runs three nested interpreted loops — points x walks x steps
@@ -101,8 +101,7 @@ class SolverOptions:
     rejection_rounds: int = 64         # redraw cap of the screened-radius
                                        # rejection. The loop exits when the
                                        # whole block accepts, so its cost is
-                                       # the block MAX (~6 rounds at 16k
-                                       # lanes). ANY cap is exactly
+                                       # the block MAX. ANY cap is exactly
                                        # UNBIASED: a lane that exhausts its
                                        # rounds takes the final envelope
                                        # candidate with the closed-form
@@ -111,9 +110,9 @@ class SolverOptions:
                                        # sampling/radial._exact_rejection).
                                        # Small caps trade a little weight
                                        # variance on the few fallback lanes
-                                       # for throughput (cap 4: ~18% faster
-                                       # on the DCR bench, <=4% of draws
-                                       # weighted at the worst-case z~2).
+                                       # for fewer rounds (cap 4: <=4% of
+                                       # draws weighted at the worst-case
+                                       # z~2).
     min_quota: int = 4                 # min walks per recycled slot; amortizes
                                        # the walk-length straggler tail
     common_random_numbers: bool = False  # slot-matched RNG streams across
@@ -217,10 +216,10 @@ class SolverOptions:
                                        #   point from a balanced log/
                                        #   exponential mixture, so branch
                                        #   weights are an O(1) density
-                                       #   ratio. ~1x median error at
-                                       #   equal time on the notebook
-                                       #   survey AND ~4x smaller seed
-                                       #   tail (THEORY.md §4e table;
+                                       #   ratio. ~1x median error on
+                                       #   the notebook survey AND ~4x
+                                       #   smaller seed tail (THEORY.md
+                                       #   §4e table;
                                        #   the pre-J q = |gamma|/
                                        #   sqrt(sigma_bar) scaling cost
                                        #   14x).
@@ -258,8 +257,8 @@ class SolverOptions:
                                        # max_boundary_gamma * min(diameter,
                                        # 1/sqrt(sigma_bar)) exceeds 0.3,
                                        # else off. (The chain tames the
-                                       # notebook's seed tail ~4x at
-                                       # equal cost, but a ~-10 common-
+                                       # notebook's seed tail ~4x, but a
+                                       # ~-10 common-
                                        # mode notebook offset is under
                                        # investigation — THEORY.md §4f —
                                        # so auto stays conservative.)
@@ -321,19 +320,22 @@ class SolverOptions:
                                        # (THEORY.md §4g). All backends:
                                        # XLA base/split/sharded and the
                                        # fused kernel (snap_starts state).
-    rng: str = "fast"                  # "fast" (counter-hash; compiles in
-                                       # seconds) or "threefry" (jax.random;
-                                       # minutes of XLA compile in while-loops
-                                       # on the current TPU toolchain)
-    backend: str = "auto"              # "auto" | "pallas" | "xla": pallas runs
-                                       # the fused multi-step VMEM-resident
-                                       # kernel (ops/pallas_walk.py); auto
-                                       # picks pallas on TPU when the
-                                       # geometry is statically unrollable
-    pallas_inner_steps: int = 256      # walk steps per pallas launch
-                                       # (launch BOUNDARIES are where
-                                       # splitting / packing / progress
-                                       # fire, so those paths keep it)
+    rng: str = "fast"                  # "fast" (per-lane counter hash,
+                                       # sampling/rng.py; the only RNG the
+                                       # fused kernel implements) or
+                                       # "threefry" (jax.random; XLA
+                                       # backend only)
+    backend: str = "auto"              # "auto" | "pallas" | "xla": pallas
+                                       # runs the fused multi-step walk
+                                       # kernel (ops/pallas_walk.py, Triton
+                                       # route, GPU only outside
+                                       # interpret_mode); auto picks it on
+                                       # the GPU when the geometry fits
+                                       # the kernel and rng="fast"
+    pallas_inner_steps: int = 256      # walk steps per kernel launch on
+                                       # the launch-loop paths (launch
+                                       # BOUNDARIES are where splitting /
+                                       # packing / progress fire)
     adaptive_launches: bool = True     # plain fused-kernel path only
                                        # (no split/compaction/progress —
                                        # nothing needs launch boundaries):
@@ -342,30 +344,22 @@ class SolverOptions:
                                        # whole remaining quota bound and
                                        # let the per-block early exit end
                                        # each block exactly when its
-                                       # quota drains. Removes the
-                                       # per-launch dispatch + full-state
-                                       # HBM round-trip that dominates
-                                       # SHORT-walk solves (bench.py
-                                       # --preset short; VERDICT r3 #2).
-                                       # Walks are launch-partitioning-
-                                       # invariant by RNG design, so
-                                       # results are BIT-IDENTICAL to the
-                                       # fixed-launch loop (tested).
-    pallas_block_rows: int = 64        # walker rows (x128 lanes) per block
-                                       # (re-tuned 2026-08-18 after the
-                                       # rejection unroll: 64 -> 1.745 G
-                                       # vs 128 -> 1.70 on the DCR bench,
-                                       # 8-rep medians; 256 is 1.38)
+                                       # quota drains. Walks are launch-
+                                       # partitioning-invariant by RNG
+                                       # design, so results are BIT-
+                                       # IDENTICAL to the fixed-launch
+                                       # loop (tested).
+    pallas_block_rows: int = 1         # walker rows (x128 lanes) per kernel
+                                       # block, a power of two, run at
+                                       # one walker per thread up to 8
+                                       # warps (PERF.md holds the
+                                       # block-size sweep)
     compaction: object = False         # walker-lane compaction on the
-                                       # Pallas backend:
-                                       # * False — none (default, and
-                                       #   the measured winner in EVERY
-                                       #   single-device regime of the
-                                       #   round-5 TPU matrix —
-                                       #   tools/compaction_matrix.py,
-                                       #   2026-08-21: the adaptive
-                                       #   single-launch mode already
-                                       #   absorbs straggler tails).
+                                       # kernel backend:
+                                       # * False — none (default; the
+                                       #   adaptive single launch already
+                                       #   ends each block when its quota
+                                       #   drains).
                                        # * "pack" — IN-GRAPH lane packing:
                                        #   after a launch whose active
                                        #   count halved since the last
@@ -377,43 +371,23 @@ class SolverOptions:
                                        #   Walks are unchanged (stream
                                        #   ids/p0/pid ride the
                                        #   permutation); the solve stays
-                                       #   end-to-end jittable. NOTE:
-                                       #   setting "pack" disables the
-                                       #   (stronger) adaptive single-
-                                       #   launch mode; measured on
-                                       #   single-device: 0.76x
-                                       #   sustained, 0.11x short-walk,
-                                       #   ~1.0x straggler — its ONLY
-                                       #   paying niche is sharded
-                                       #   Pallas (packs every launch),
-                                       #   where adaptive mode and the
-                                       #   host loop don't exist.
-                                       # * True (the legacy host-driven
-                                       #   grid-SHRINK loop) was REMOVED
-                                       #   in round 5: the matrix
-                                       #   measured it slower everywhere
-                                       #   — 0.22x sustained, 0.05x
-                                       #   short, 2.2x worse even on the
-                                       #   straggler-bound no-roulette
-                                       #   notebook workload it
-                                       #   historically won (0.618 vs
-                                       #   0.287 s/solve) — because
-                                       #   adaptive launches now handle
-                                       #   the tail in-kernel. Passing
-                                       #   True raises.
+                                       #   end-to-end jittable. Setting
+                                       #   "pack" disables the adaptive
+                                       #   single launch; the sharded
+                                       #   kernel path, which launches in
+                                       #   a loop anyway, packs every
+                                       #   launch.
+                                       # * True (the host-driven grid-
+                                       #   SHRINK loop) was removed in
+                                       #   round 5. Passing True raises.
 
     def __post_init__(self):
         if self.compaction is True:
             raise ValueError(
                 "compaction=True (the host-driven grid-shrink loop) was "
-                "removed in round 5: the TPU compaction matrix "
-                "(tools/compaction_matrix.py, 2026-08-21) measured it "
-                "slower in every regime — 0.22x sustained, 0.05x "
-                "short-walk, 2.2x worse on the straggler-bound "
-                "no-roulette workload it once won — because adaptive "
-                "single-launch mode now absorbs straggler tails "
-                "in-kernel. Use the default compaction=False, or "
-                "'pack' on sharded Pallas.")
+                "removed in round 5: the adaptive single launch ends "
+                "each kernel block when its quota drains. Use the "
+                "default compaction=False, or 'pack'.")
 
 
 class RawSolveOut(NamedTuple):
@@ -452,6 +426,11 @@ class RawSolveOut(NamedTuple):
                                    # banked (max over sources) — the
                                    # variance-domination tripwire read by
                                    # solve()'s guard
+    finished_walks: jnp.ndarray = float("nan")  # () walks banked over
+                                   # all lanes (n_points * n_walks when
+                                   # the solve drained); NaN on split
+                                   # solves, whose clones inherit their
+                                   # parent's per-lane walk count
 
 
 class SolveResult(NamedTuple):
@@ -536,11 +515,11 @@ class WoStSolver:
         ``s`` the chord machinery — an extra segment scan and three hash
         streams per on-boundary step — costs real throughput for a bias
         far below MC noise). The chain is exact on the MMS stress gates,
-        cuts the notebook's heavy cross-seed dV error tail ~4x at equal
-        err^2*t (THEORY.md §4e), and at the flagship's s = 0.119 it is
+        cuts the notebook's heavy cross-seed dV error tail ~4x
+        (THEORY.md §4e), and at the flagship's s = 0.119 it is
         ALSO the better absolute-potential estimator: measured against
         the Richardson-extrapolated FDM oracle at 16 seeds x 4M
-        walks/electrode (TPU, 2026-08-18), plain reflection's
+        walks/electrode (2026-08-18), plain reflection's
         per-electrode bias is +2..+124 (median +18, largest near the
         source dipole) while the chain's residual offset is -3..-15
         (median -6.4, ~3x smaller; its mechanism remains the open
@@ -1493,7 +1472,7 @@ class WoStSolver:
         mode = self.options.backend
         if mode == "xla":
             return False
-        from ..ops.pallas_walk import pallas_supported
+        from ..ops.pallas_walk import interpreting, pallas_supported
 
         ok = pallas_supported(self.problem)
         # features the kernel does not implement: falling back to them
@@ -1506,8 +1485,8 @@ class WoStSolver:
         if mode == "pallas":
             if not ok:
                 raise ValueError(
-                    "backend='pallas' requires statically-unrollable "
-                    "geometry (see ops/pallas_walk.MAX_UNROLL_SEGMENTS)"
+                    "backend='pallas' supports boundaries of up to "
+                    "ops/pallas_walk.MAX_TABLE_SEGMENTS segments"
                 )
             if blockers:
                 raise ValueError(
@@ -1515,9 +1494,20 @@ class WoStSolver:
                     + "; ".join(blockers)
                     + ". Use backend='xla' or drop the option."
                 )
+            if not (self._on_gpu() or interpreting()):
+                raise ValueError(
+                    "backend='pallas' compiles for the GPU only; on "
+                    f"{self._platform()!r} run it inside "
+                    "ops.pallas_walk.interpret_mode() or use backend='xla'"
+                )
             return True
-        # auto: pallas on TPU only (interpret-mode CPU pallas is slow)
-        return ok and not blockers and jax.default_backend() == "tpu"
+        return ok and not blockers and self._on_gpu()
+
+    def _platform(self) -> str:
+        return jax.default_backend()
+
+    def _on_gpu(self) -> bool:
+        return self._platform() == "gpu"
 
     def _build_solve_fn(self, n_points: int, n_walks: int, max_steps: int, eps: float):
         # keyed on the problem version so Problem setters (set_source_term,
@@ -1647,7 +1637,7 @@ class WoStSolver:
                 stacklevel=3,
             )
 
-        def _finish(final):
+        def _finish(final, finished):
             sums = final.acc_sum.reshape(n_src, n_points, K).sum(axis=2)
             sumsq = final.acc_sumsq.reshape(n_src, n_points, K).sum(axis=2)
             mean = sums / n_walks
@@ -1660,15 +1650,14 @@ class WoStSolver:
                 truncated_weight=final.trunc_absw,
                 max_weight=final.wmax,
                 max_banked=final.bmax,
+                finished_walks=finished,
             )
 
         # cross-step alpha cache: carry alpha(walker) in state so the hot
         # loop never re-evaluates the field at the walker's own position
         # (the move already evaluated it at every candidate destination).
-        # (TPU A/B 2026-08-18: 1.653 vs 1.650 G steps/s with the cache
-        # forced off on the headline bench — neutral there because the
-        # smooth-field alpha eval is cheap; kept for draw-for-draw parity
-        # with the kernel carry and for expensive alpha fields.)
+        # Kept for draw-for-draw parity with the kernel carry and for
+        # expensive alpha fields.
         use_cache = self.problem.use_delta_tracking
         alpha0_v = jax.vmap(_lift(self.problem.alpha_c)) if use_cache \
             else None
@@ -1697,7 +1686,8 @@ class WoStSolver:
                     return s2
 
                 final = jax.lax.while_loop(cond, body, state)
-                return _finish(final)
+                return _finish(
+                    final, jnp.sum(final.n_done).astype(jnp.float32))
 
             return jax.jit(run)
 
@@ -1740,26 +1730,25 @@ class WoStSolver:
                 step_s, do_split, state, p0x, p0y, key,
                 sid0, jnp.uint32(1 << 30), step_cap, max_steps,
             )
-            return _finish(final)
+            return _finish(final, jnp.float32(jnp.nan))
 
         return jax.jit(run)
 
     def _build_solve_fn_pallas(
         self, n_points: int, n_walks: int, max_steps: int, eps: float
     ):
-        """Fused-kernel solve: outer launch loop around the multi-step
-        Pallas kernel (``ops/pallas_walk.py``), which advances every walker
-        ``pallas_inner_steps`` per launch with state resident in VMEM.
+        """Fused-kernel solve: launch loop around the multi-step Pallas
+        kernel (``ops/pallas_walk.py``), which advances every walker up to
+        ``pallas_inner_steps`` per launch with its state in registers.
 
-        With ``SolverOptions.compaction="pack"`` (or splitting/progress)
-        the launch loop runs on the host; packing periodically PERMUTES
-        still-active walker lanes into the leading kernel blocks (stream
-        ids ride in the state, so a lane's walk is unchanged by where it
-        lives) and drained trailing blocks take the kernel's per-block
-        early exit. Off — the default, and the measured winner in every
-        single-device regime (tools/compaction_matrix.py) — the whole
-        loop is one jitted ``lax.while_loop`` or, when nothing needs
-        launch boundaries, the adaptive single-launch kernel.
+        When nothing needs launch boundaries (no split, packing or
+        progress) the solve is ONE adaptive kernel launch inside a jitted
+        function. ``compaction="pack"`` keeps a jitted launch loop that
+        periodically PERMUTES still-active walker lanes into the leading
+        kernel blocks (stream ids ride in the state, so a lane's walk is
+        unchanged by where it lives) so drained trailing blocks take the
+        kernel's per-block early exit. Splitting and progress run the
+        launch loop on the host.
         """
         from ..ops.pallas_walk import make_pallas_walk, stream_ids
 
@@ -1890,8 +1879,8 @@ class WoStSolver:
                     jnp.max(state["wmax"]), jnp.max(state["bmax"]))
 
         want_progress = self._progress_cb is not None
-        # "pack" = in-graph lane packing (end-to-end jittable); True =
-        # legacy host shrink loop (below, with split/progress)
+        # "pack" = in-graph lane packing (end-to-end jittable; also on
+        # the host loop below when split/progress need it)
         use_pack = opts.compaction == "pack"
 
         if not (opts.compaction or use_split or want_progress) or (
@@ -1900,7 +1889,7 @@ class WoStSolver:
             # launch boundaries, so hand the kernel the WHOLE remaining
             # step bound as its runtime budget — each block's early exit
             # ends it exactly when its quota drains, and the per-launch
-            # dispatch + full-state HBM round-trip disappears. The while
+            # dispatch + full-state round trip disappears. The while
             # loop below is kept as a pure safety net (it runs once).
             # Packing mode still wants boundaries to re-sort at.
             adaptive = opts.adaptive_launches and not use_pack
@@ -1963,6 +1952,8 @@ class WoStSolver:
                     iterations=jnp.max(state["life"]),
                     truncated_walks=trunc_n, truncated_weight=trunc_w,
                     max_weight=wmax, max_banked=bmax,
+                    finished_walks=jnp.sum(state["ndone"]).astype(
+                        jnp.float32),
                 )
 
             return jax.jit(run)
@@ -1973,6 +1964,7 @@ class WoStSolver:
         count_j = jax.jit(lambda st: (st["quota"] > 0).sum())
         qsum_j = jax.jit(lambda st: jnp.sum(st["quota"]))
         maxlife_j = jax.jit(lambda st: jnp.max(st["life"]))
+        ndone_j = jax.jit(lambda st: jnp.sum(st["ndone"]))
         moments_j = jax.jit(_moments)
         total_walks = n_points * n_walks
 
@@ -2067,6 +2059,8 @@ class WoStSolver:
                 truncated_weight=float(tw),
                 max_weight=float(wmax),
                 max_banked=float(bmax),
+                finished_walks=(np.nan if use_split
+                                else float(ndone_j(state))),
             )
 
         return run

@@ -1,4 +1,4 @@
-"""DC-resistivity survey layer (TPU-native rebuild of C17/C18).
+"""DC-resistivity survey layer (JAX rebuild of C17/C18).
 
 Builds electrode geometries, dipole current sources, and converts solved
 potentials into dipole voltage differences and apparent resistivities — the
@@ -47,40 +47,26 @@ __all__ = [
 
 
 def survey_default_options(**overrides) -> SolverOptions:
-    """The survey pipelines' default :class:`SolverOptions` — every knob at
-    its MEASURED optimum for the DCR workload, so default runs reproduce
-    the published numbers. THE governing measurement is the pinned
-    accuracy-calibration table (THEORY.md §5, 2026-08-19,
-    ``tools/calibration_table.py``: one config, one pinned Richardson
-    oracle, 24 TPU seeds, one-knob-off arms); it supersedes all earlier
-    per-knob accuracy claims:
+    """The survey pipelines' default :class:`SolverOptions`.
+
+    The knobs were chosen by the pinned accuracy-calibration table
+    (THEORY.md §5, ``tools/calibration_table.py``: one config, one pinned
+    Richardson oracle, 24 seeds, one-knob-off arms):
 
     * ``common_random_numbers=True`` — dipole voltages are differences;
       slot-matched streams correlate the shared MC noise so it cancels in
-      them. Free (a stream relabeling). The single biggest accuracy
-      lever in the pinned table: CRN off costs 1.9x in med²·t
-      (42.4 vs 21.9). Also tightly correlates CLOSE receivers (verified
+      them. Free (a stream relabeling); the single biggest accuracy lever
+      in the table. Also tightly correlates CLOSE receivers (verified
       bit-identical at zero spacing).
-    * ``compaction=False`` — the round-5 TPU matrix
-      (tools/compaction_matrix.py, 2026-08-21) measured compaction
-      losing in EVERY single-device regime, including the
-      straggler-bound no-roulette notebook workload it historically won
-      (shrink 0.618 vs off 0.287 s/solve; "pack" ~neutral at 0.293):
-      adaptive single-launch mode absorbs the straggler tail in-kernel.
-      The shrink mode was removed; "pack" remains for sharded Pallas.
-    * ``roulette_threshold=0.05`` — unbiased low-weight kill; the pinned
-      table measures 1.2x med²·t off→on (26.6 vs 21.9) on top of the
-      wall-clock it saves elsewhere (1.75x on the no-majorant survey).
-    * ``rejection_rounds=2`` — the notebook-survey default. (The
-      round-5 bench sweep, tools/throughput_tradeoff.py 2026-08-21,
-      found rounds=1 wins stderr^2*t on the SUSTAINED bench workload —
-      the headline preset flipped — but the survey defaults are
-      governed by the pinned notebook accuracy table, measured at
-      rounds=2; 64 wastes rounds.)
+    * ``compaction=False`` — the adaptive single kernel launch already
+      ends each block when its quota drains.
+    * ``roulette_threshold=0.05`` — unbiased low-weight kill.
+    * ``rejection_rounds=2`` — the notebook-survey setting of the table
+      (64 wastes rounds).
 
-    Any keyword overrides the tuned value (e.g.
-    ``survey_default_options(compaction=False)`` for end-to-end jittable
-    solves).
+    Their time cost on the GPU is not measured yet (PERF.md). Any keyword
+    overrides the default (e.g. ``survey_default_options(
+    split_threshold=4.0)`` for the flagship gate's configuration).
     """
     base = dict(
         common_random_numbers=True,

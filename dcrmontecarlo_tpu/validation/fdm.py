@@ -1,6 +1,6 @@
 """Finite-difference/volume oracle for cross-validating the MC solver.
 
-TPU-CI replacement for the reference's external SimPEG FEM oracle
+In-repo replacement for the reference's external SimPEG FEM oracle
 (``tests/testNotebook.ipynb`` cells 5-15, ``Simulation2DNodal`` on a
 TreeMesh): a self-contained scipy.sparse finite-volume discretization of
 

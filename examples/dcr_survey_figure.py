@@ -1,4 +1,4 @@
-"""Regenerate the reference's DCR scenario figure with the TPU framework.
+"""Regenerate the reference's DCR scenario figure with this framework.
 
 Reference producer: ``tests/testGeophysicalScenario.py:156-223`` (committed
 as ``dcr_survey_results.png``): 200 m survey, 1 A Gaussian dipole at

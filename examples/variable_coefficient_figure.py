@@ -1,4 +1,4 @@
-"""Regenerate the reference's variable-coefficient figure with the TPU
+"""Regenerate the reference's variable-coefficient figure with this
 framework.
 
 Reference producer: ``tests/testWostVariableCoefficients.py:181,370``

@@ -38,16 +38,11 @@ def test_surface_electrode_line_never_overshoots():
 
 
 def test_survey_default_options_are_measured_optima():
-    # the shipped defaults must reproduce the published profile
-    # (VERDICT r2 #7): every knob is pinned by THE accuracy-calibration
-    # table (THEORY.md §5, 2026-08-19, tools/calibration_table.py —
-    # 24 TPU seeds, one-knob-off arms vs the pinned Richardson oracle:
-    # CRN 1.9x med²·t, roulette 1.2x, majorant 1.7x). compaction OFF —
-    # the round-5 TPU matrix (tools/compaction_matrix.py, 2026-08-21)
-    # measures compaction losing in every single-device regime;
-    # rejection_rounds=2 is the notebook optimum (the r5arms
-    # measurement: rounds=1 loses 16% med²·t here, though it wins the
-    # sustained bench — both sides pinned in THEORY.md §5).
+    # the shipped defaults are the knobs of the accuracy-calibration
+    # table (THEORY.md §5, tools/calibration_table.py — 24 seeds,
+    # one-knob-off arms vs the pinned Richardson oracle): CRN on,
+    # roulette 0.05, rejection_rounds=2; compaction off (the adaptive
+    # single kernel launch ends each block when its quota drains).
     from dcrmontecarlo_tpu.survey import survey_default_options
 
     o = survey_default_options()

@@ -2,8 +2,8 @@
 
 Two classes of silent footguns have bitten this codebase (CLAUDE.md):
 
-* module-level ``jnp`` constants initialize the JAX backend (and grab the
-  TPU device lock) at IMPORT time, breaking the forced-CPU test recipe;
+* module-level ``jnp`` constants initialize the JAX backend at IMPORT
+  time, before a caller can choose the platform;
 * raw ``problem.<field> =`` mutation outside ``problems/`` bypasses the
   ``Problem.version`` bump that keys every compiled-solve cache, leaving
   solvers silently stale (the exact bug class ``run_pseudosection`` once

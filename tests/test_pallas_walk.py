@@ -3,22 +3,21 @@
 The kernel draws randomness from the same per-lane counter hash as the XLA
 step (``sampling/rng.py``), so interpret-mode runs are deterministic and
 comparable against the XLA backend with matched seeds — every kernel code
-path (plain harmonic, source NEE, delta tracking, MIS, Neumann, SMEM
-geometry) gets CI coverage on CPU. Static-geometry cases agree with XLA to
-float-rounding level; SMEM/circle cases accumulate 1-ulp FMA differences
-that occasionally flip a trajectory, so those compare statistically.
-Full-walk-count statistical gates still run on real TPU.
+path (plain harmonic, source NEE, delta tracking, MIS, Neumann, table
+geometry) gets CI coverage on CPU through ``interpret_mode()``.
+Static-geometry cases agree with XLA to float-rounding level;
+table/circle cases accumulate 1-ulp FMA differences that occasionally
+flip a trajectory, so those compare statistically. Full-walk-count
+statistical gates are ``gpu``-marked and run on the card.
 """
 
 import numpy as np
-import jax
 import pytest
 
 from dcrmontecarlo_tpu import Problem, WoStSolver, square_loop, circle_loop
 from dcrmontecarlo_tpu.geometry import Polyline
+from dcrmontecarlo_tpu.ops.pallas_walk import interpret_mode
 from dcrmontecarlo_tpu.solver import SolverOptions
-
-on_tpu = jax.default_backend() == "tpu"
 
 _SMALL = dict(target_slots=256, pallas_inner_steps=16, pallas_block_rows=8)
 
@@ -26,11 +25,9 @@ _SMALL = dict(target_slots=256, pallas_inner_steps=16, pallas_block_rows=8)
 def _pair(prob, pts, n_walks=64, max_steps=60, eps=1e-2, seed=5, crn=False,
           opts=_SMALL):
     """Solve with pallas (interpret mode) and XLA using the same seed."""
-    from jax.experimental.pallas import tpu as pltpu
-
     sp = WoStSolver(prob, SolverOptions(backend="pallas",
                                         common_random_numbers=crn, **opts))
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         rp = sp.solve(pts, n_walks=n_walks, max_steps=max_steps, eps=eps,
                       seed=seed)
     sx = WoStSolver(prob, SolverOptions(backend="xla",
@@ -55,10 +52,10 @@ def test_pallas_supported_detection():
 
     prob = Problem(dirichlet=square_loop(1.0))
     assert pallas_supported(prob)
-    # medium geometry: SMEM-table mode
+    # medium geometry: segment-table mode
     med = Problem(dirichlet=circle_loop(1.0, n=256))
     assert pallas_supported(med)
-    # beyond the SMEM budget: XLA only
+    # beyond the table budget: XLA only
     from dcrmontecarlo_tpu.geometry import func_to_polyline
 
     huge = Problem(
@@ -79,11 +76,56 @@ def test_backend_pallas_rejects_oversized_geometry():
         s._use_pallas()
 
 
-def test_auto_backend_on_cpu_is_xla():
+def test_backend_selection(monkeypatch):
+    # auto takes the XLA loop off the GPU and the kernel on it; an
+    # explicit backend="pallas" off the GPU runs only in interpret mode
     prob = Problem(dirichlet=square_loop(1.0))
     s = WoStSolver(prob, SolverOptions(backend="auto"))
-    if not on_tpu:
-        assert not s._use_pallas()
+    assert not s._use_pallas()
+    p = WoStSolver(prob, SolverOptions(backend="pallas"))
+    with pytest.raises(ValueError, match="GPU only"):
+        p._use_pallas()
+    with interpret_mode():
+        assert p._use_pallas()
+    monkeypatch.setattr(WoStSolver, "_on_gpu", lambda self: True)
+    assert s._use_pallas()
+    assert p._use_pallas()
+
+
+@pytest.mark.parametrize("rows,warps", [(1, 4), (2, 8), (4, 8), (64, 8)])
+def test_num_warps_one_walker_per_thread(rows, warps):
+    # 128 walkers per row over 32-thread warps, capped at 8 warps
+    from dcrmontecarlo_tpu.ops.pallas_walk import num_warps
+
+    assert num_warps(rows) == warps
+
+
+def test_interpret_mode_is_scoped():
+    from dcrmontecarlo_tpu.ops.pallas_walk import interpreting
+
+    assert not interpreting()
+    with pytest.raises(RuntimeError):
+        with interpret_mode():
+            with interpret_mode():
+                assert interpreting()
+            assert interpreting()
+            raise RuntimeError
+    assert not interpreting()
+
+
+@pytest.mark.parametrize("n,c", [(3, 4), (32, 4), (33, 6), (100, 4)])
+def test_pad_table_powers_of_two(n, c):
+    # Triton blocks are powers of two; padding entries are inert 1e30
+    # points that lose every min and fail every hit test
+    from dcrmontecarlo_tpu.ops.pallas_walk import _CHUNK, _pad_table
+
+    table = np.arange(n * c, dtype=np.float32).reshape(n, c)
+    out = _pad_table(table)
+    rows, cols = out.shape
+    assert rows >= max(n, _CHUNK) and rows & (rows - 1) == 0
+    assert cols >= c and cols & (cols - 1) == 0
+    np.testing.assert_array_equal(out[:n, :c], table)
+    assert (out[n:] == 1e30).all() and (out[:, c:] == 1e30).all()
 
 
 # --------------------------------------------------------------------- #
@@ -177,8 +219,8 @@ def test_pallas_matches_xla_mis_delta_neumann():
 
 
 def test_pallas_matches_xla_smem_statistical():
-    # >96 segments -> SMEM-table kernel; inexact circle coordinates pick up
-    # 1-ulp FMA differences that occasionally flip a trajectory, so SMEM
+    # >96 segments -> segment-table kernel; inexact circle coordinates pick up
+    # 1-ulp FMA differences that occasionally flip a trajectory, so table
     # cases compare as two estimators of the same quantity, not
     # walk-for-walk
     prob = Problem(dirichlet=circle_loop(1.0, n=100),
@@ -196,13 +238,12 @@ def test_pallas_matches_xla_smem_statistical():
 
 
 def test_pallas_smem_sees_trailing_segments():
-    # Regression: the SMEM chunk loops iterate rows // _CHUNK times, so a
+    # Regression: the table chunk loops iterate rows // _CHUNK times, so a
     # table only padded to Polyline's multiple of 8 silently dropped up to
     # 24 trailing real segments. With the right edge of this 100-segment
     # square at table index 98, walkers would escape the domain through it
     # and accumulate far-field BC values.
     from dcrmontecarlo_tpu.ops.pallas_walk import _CHUNK, _seg_table, _vert_table
-    from jax.experimental.pallas import tpu as pltpu
 
     poly = circle_loop(1.0, n=100)
     assert _seg_table(poly).shape[0] % _CHUNK == 0
@@ -226,7 +267,7 @@ def test_pallas_smem_sees_trailing_segments():
 
     prob = Problem(dirichlet=poly, bc_dirichlet=lambda x, y: x + 2 * y)
     s = WoStSolver(prob, SolverOptions(backend="pallas", **_SMALL))
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         res = s.solve(np.array([[0.0, 0.0]]), n_walks=128, max_steps=60,
                       eps=1e-3, seed=0)
     # harmonic continuation of x + 2y at the center is 0; escaped walkers
@@ -259,8 +300,6 @@ def test_pallas_crn_tightens_differences():
 def test_pallas_reproducible_across_launch_partitioning():
     # uniforms are keyed on (stream, walk#, step#), so chopping the walk
     # into different launch sizes must not change the result
-    from jax.experimental.pallas import tpu as pltpu
-
     prob = Problem(dirichlet=square_loop(1.0),
                    bc_dirichlet=lambda x, y: x * x - y * y)
     pts = np.array([[0.2, 0.1]])
@@ -269,7 +308,7 @@ def test_pallas_reproducible_across_launch_partitioning():
         s = WoStSolver(prob, SolverOptions(
             backend="pallas", target_slots=256,
             pallas_inner_steps=inner, pallas_block_rows=8))
-        with pltpu.force_tpu_interpret_mode():
+        with interpret_mode():
             results.append(s.solve(pts, n_walks=64, max_steps=50,
                                    eps=1e-3, seed=7))
     np.testing.assert_array_equal(results[0].walk_sum, results[1].walk_sum)
@@ -278,8 +317,6 @@ def test_pallas_reproducible_across_launch_partitioning():
 def test_pallas_sharded_interpret():
     # the sharded Pallas path (shard_map around the kernel launch loop) on
     # the virtual CPU mesh in interpret mode
-    from jax.experimental.pallas import tpu as pltpu
-
     from dcrmontecarlo_tpu.parallel import ShardedWoStSolver, make_mesh
 
     prob = Problem(dirichlet=square_loop(1.0),
@@ -288,7 +325,7 @@ def test_pallas_sharded_interpret():
     s = ShardedWoStSolver(prob, make_mesh(2), SolverOptions(
         backend="pallas", target_slots=256,
         pallas_inner_steps=16, pallas_block_rows=8))
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         res = s.solve(pts, n_walks=256, max_steps=60, eps=1e-3, seed=0)
     exact = pts[:, 0] + 2 * pts[:, 1]
     assert (np.abs(res.mean - exact) < 4 * res.stderr + 5e-3).all(), (
@@ -303,8 +340,6 @@ def test_pallas_sharded_compaction_packs_lanes():
     # drained trailing blocks take the per-block early exit. The
     # permutation carries sid/p0/pid, so walks are identical and the
     # packed result matches unpacked exactly up to summation order.
-    from jax.experimental.pallas import tpu as pltpu
-
     from dcrmontecarlo_tpu.parallel import ShardedWoStSolver, make_mesh
 
     prob = Problem(dirichlet=square_loop(1.0),
@@ -315,7 +350,7 @@ def test_pallas_sharded_compaction_packs_lanes():
         s = ShardedWoStSolver(prob, make_mesh(2), SolverOptions(
             backend="pallas", target_slots=256,
             pallas_inner_steps=8, pallas_block_rows=8, compaction=comp))
-        with pltpu.force_tpu_interpret_mode():
+        with interpret_mode():
             res[comp] = s.solve(pts, n_walks=256, max_steps=60, eps=1e-3,
                                 seed=0)
     a, b = res[False], res["pack"]
@@ -331,7 +366,6 @@ def test_pallas_sharded_split_interpret():
     # agree with split-off within combined MC error while actually
     # cloning (more executed walker-steps at identical walk count).
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
 
     from dcrmontecarlo_tpu.parallel import ShardedWoStSolver, make_mesh
 
@@ -345,7 +379,7 @@ def test_pallas_sharded_split_interpret():
             backend="pallas", target_slots=512,
             pallas_inner_steps=16, pallas_block_rows=8,
             split_threshold=thr))
-        with pltpu.force_tpu_interpret_mode():
+        with interpret_mode():
             res[thr] = s.solve(pts, n_walks=800, max_steps=150, eps=2e-2,
                                seed=9)
     a, b = res[None], res[1.5]
@@ -356,11 +390,11 @@ def test_pallas_sharded_split_interpret():
 
 
 # --------------------------------------------------------------------- #
-# full-walk-count statistical gates (real TPU)                          #
+# full-walk-count statistical gates (on the GPU)                        #
 # --------------------------------------------------------------------- #
 
-@pytest.mark.skipif(not on_tpu, reason="full-scale gates run on TPU")
-def test_pallas_harmonic_tpu():
+@pytest.mark.gpu
+def test_pallas_harmonic_gpu(gpu):
     prob = Problem(dirichlet=square_loop(1.0), bc_dirichlet=lambda x, y: x + 2 * y)
     s = WoStSolver(prob, SolverOptions(target_slots=1 << 15, backend="pallas"))
     pts = np.array([[0.0, 0.0], [0.5, 0.3]])
@@ -369,8 +403,8 @@ def test_pallas_harmonic_tpu():
     assert (np.abs(res.mean - exact) < 4 * res.stderr + 5e-3).all()
 
 
-@pytest.mark.skipif(not on_tpu, reason="full-scale gates run on TPU")
-def test_pallas_matches_xla_tpu():
+@pytest.mark.gpu
+def test_pallas_matches_xla_gpu(gpu):
     prob = Problem(
         dirichlet=square_loop(2.0),
         bc_dirichlet=lambda x, y: x * x + y * y,
@@ -388,8 +422,8 @@ def test_pallas_matches_xla_tpu():
     assert (err < tol).all(), (a.mean, b.mean)
 
 
-@pytest.mark.skipif(not on_tpu, reason="full-scale gates run on TPU")
-def test_pallas_mis_neumann_matches_fdm_tpu():
+@pytest.mark.gpu
+def test_pallas_mis_neumann_matches_fdm_gpu(gpu):
     # Regression for the on-Neumann MIS hemisphere-density bias: the
     # reference values are from the 481^2 finite-volume oracle on the
     # identical problem (see the 2026-08 bias isolation in git history).
@@ -493,13 +527,8 @@ def test_pallas_matches_xla_robin_reflectance():
 
 def test_shrink_compaction_removed():
     # compaction=True (the host-driven grid-SHRINK loop) was REMOVED in
-    # round 5: the TPU compaction matrix (tools/compaction_matrix.py,
-    # 2026-08-21) measured it slower in every regime — 0.22x sustained,
-    # 0.05x short-walk, and 2.2x worse even on the straggler-bound
-    # no-roulette notebook workload it historically won (0.618 vs
-    # 0.287 s/solve) — because adaptive single-launch mode absorbs
-    # straggler tails in-kernel. The option must fail loudly, not
-    # silently fall back.
+    # round 5: the adaptive single launch absorbs straggler tails
+    # in-kernel. The option must fail loudly, not silently fall back.
     import pytest
 
     with pytest.raises(ValueError, match="removed in round 5"):
@@ -527,7 +556,6 @@ def test_split_threshold_unbiased():
     # split-on solve must agree with the split-off solve within combined
     # MC error, while actually splitting (clones add walker-steps).
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
 
     bump = lambda x, y: 1.0 + 3.0 * jnp.exp(-((x * x + y * y) / 0.18))
     prob = Problem(dirichlet=square_loop(2.0),
@@ -538,7 +566,7 @@ def test_split_threshold_unbiased():
         s = WoStSolver(prob, SolverOptions(
             backend="pallas", target_slots=512, pallas_inner_steps=16,
             pallas_block_rows=8, split_threshold=thr))
-        with pltpu.force_tpu_interpret_mode():
+        with interpret_mode():
             res[thr] = s.solve(pts, n_walks=96, max_steps=200, eps=2e-2,
                                seed=9)
     a, b = res[None], res[1.5]
@@ -558,7 +586,6 @@ def test_freeze_exposes_midwalk_weights_to_split():
     # freeze parks heavy lanes mid-launch, so clones MUST appear even in
     # the one-launch regime, and stay unbiased vs split-off.
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
 
     bump = lambda x, y: 1.0 + 3.0 * jnp.exp(-((x * x + y * y) / 0.18))
     prob = Problem(dirichlet=square_loop(2.0),
@@ -569,7 +596,7 @@ def test_freeze_exposes_midwalk_weights_to_split():
         s = WoStSolver(prob, SolverOptions(
             backend="pallas", target_slots=512, pallas_inner_steps=4096,
             pallas_block_rows=8, split_threshold=thr))
-        with pltpu.force_tpu_interpret_mode():
+        with interpret_mode():
             res[thr] = s.solve(pts, n_walks=96, max_steps=200, eps=2e-2,
                                seed=9)
     a, b = res[None], res[1.5]
@@ -615,7 +642,6 @@ def test_split_banks_destination_stats_across_points():
     # strongly contrasting per-point means the transfer is conspicuous:
     # split-on must agree with split-off per point.
     import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
 
     bump = lambda x, y: 1.0 + 3.0 * jnp.exp(-((x * x + y * y) / 0.18))
     prob = Problem(dirichlet=square_loop(2.0),
@@ -626,7 +652,7 @@ def test_split_banks_destination_stats_across_points():
         s = WoStSolver(prob, SolverOptions(
             backend="pallas", target_slots=512, pallas_inner_steps=8,
             pallas_block_rows=8, split_threshold=thr, min_quota=2))
-        with pltpu.force_tpu_interpret_mode():
+        with interpret_mode():
             res[thr] = s.solve(pts, n_walks=128, max_steps=150, eps=2e-2,
                                seed=3)
     a, b = res[None], res[1.2]
@@ -670,8 +696,6 @@ def test_pallas_ingraph_pack_preserves_walks():
     # start points, and point ids ride the permutation — so the packed
     # solve's per-point sums equal the unpacked solve's up to float
     # summation order.
-    from jax.experimental.pallas import tpu as pltpu
-
     prob = Problem(
         dirichlet=square_loop(1.0),
         bc_dirichlet=lambda x, y: x + 2.0 * y,
@@ -683,7 +707,7 @@ def test_pallas_ingraph_pack_preserves_walks():
     for mode in (False, "pack"):
         s = WoStSolver(prob, SolverOptions(backend="pallas",
                                            compaction=mode, **kw))
-        with pltpu.force_tpu_interpret_mode():
+        with interpret_mode():
             res[mode] = s.solve(pts, n_walks=64, max_steps=200, eps=1e-2,
                                 seed=3)
     a, b = res[False], res["pack"]
@@ -697,8 +721,6 @@ def test_pallas_pack_with_split_host_loop():
     # host path): packing must not disturb the split's banked statistics
     # or the point-id relabeling.
     import jax.numpy as jnp
-
-    from jax.experimental.pallas import tpu as pltpu
 
     k = 0.4
     prob = Problem(
@@ -715,7 +737,7 @@ def test_pallas_pack_with_split_host_loop():
     for mode in (False, "pack"):
         s = WoStSolver(prob, SolverOptions(backend="pallas",
                                            compaction=mode, **kw))
-        with pltpu.force_tpu_interpret_mode():
+        with interpret_mode():
             res[mode] = s.solve(pts, n_walks=48, max_steps=300, eps=0.05,
                                 seed=7)
     a, b = res[False], res["pack"]
@@ -732,8 +754,6 @@ def test_adaptive_single_launch_bit_identical():
     # where interior collisions, wall arrivals, and recycling all fire.
     import jax.numpy as jnp
 
-    from jax.experimental.pallas import tpu as pltpu
-
     alpha = lambda x, y: 2.0 + jnp.sin(0.8 * x) * 0.9 + 0.15 * y
     prob = Problem(
         dirichlet=Polyline.from_points(
@@ -748,7 +768,7 @@ def test_adaptive_single_launch_bit_identical():
     for adaptive in (False, True):
         s = WoStSolver(prob, SolverOptions(
             backend="pallas", adaptive_launches=adaptive, **_SMALL))
-        with pltpu.force_tpu_interpret_mode():
+        with interpret_mode():
             res[adaptive] = s.solve(pts, n_walks=64, max_steps=120,
                                     eps=0.02, seed=5)
     np.testing.assert_array_equal(np.asarray(res[True].walk_sum),

@@ -224,7 +224,7 @@ def test_sharded_progress_callback():
 
 def test_sharded_pallas_progress_callback():
     # the sharded Pallas path reports once per kernel launch
-    from jax.experimental.pallas import tpu as pltpu
+    from dcrmontecarlo_tpu.ops.pallas_walk import interpret_mode
 
     prob = Problem(
         dirichlet=square_loop(1.0),
@@ -236,7 +236,7 @@ def test_sharded_pallas_progress_callback():
                       pallas_block_rows=1, pallas_inner_steps=16),
     )
     seen = []
-    with pltpu.force_tpu_interpret_mode():
+    with interpret_mode():
         res = solver.solve(
             np.array([[0.1, 0.1]]), n_walks=16, max_steps=50, eps=1e-2,
             progress=lambda d, t, i: seen.append((d, t, i)),

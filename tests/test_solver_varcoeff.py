@@ -204,7 +204,7 @@ def test_neumann_coefficient_gradient_robin():
 
 def test_robin_auto_policy():
     # "auto" compares the probed correction scale gamma_max * min(diam,
-    # 1/sqrt(sigma_bar)) against 0.05 (re-tuned 2026-08-18 from the TPU
+    # 1/sqrt(sigma_bar)) against 0.05 (re-tuned 2026-08-18 from the
     # control measurement: at the flagship's s = 0.119 the chain's
     # absolute-potential bias is ~3x smaller than plain reflection's,
     # THEORY.md §4f): the exp(k y) stress field (scale 1.0, 40%

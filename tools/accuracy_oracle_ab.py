@@ -1,4 +1,4 @@
-"""Oracle-grounded time-to-accuracy A/B on the notebook survey (TPU).
+"""Oracle-grounded time-to-accuracy A/B on the notebook survey (GPU).
 
 Per config: 16 seeds at 4096 walks; report median-over-(seeds,channels)
 |dV - dV_fdm| and wall-clock, and err*sqrt(t) (walk-count-invariant).

@@ -1,4 +1,4 @@
-"""Headline-bench A/B: screened_sampler transport vs exact (TPU)."""
+"""Headline-bench A/B: screened_sampler transport vs exact (GPU)."""
 import os
 import sys
 import time

@@ -16,7 +16,7 @@ channels): median, p90, and the walk-count-invariant figure med^2 * t.
 Results are pinned in THEORY.md §5 ("Accuracy calibration table") and
 cited by survey/dcr.py::survey_default_options and COMPONENT_MAP.md.
 
-usage: python tools/calibration_table.py [SEEDS] [WALKS]   (TPU, ~15 min)
+usage: python tools/calibration_table.py [SEEDS] [WALKS]   (on the GPU)
 """
 import os
 import sys

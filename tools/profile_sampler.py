@@ -4,7 +4,7 @@ Sweeps rejection_rounds and, with --stub, monkeypatches the sampler with a
 closed-form stand-in (BIASED — profiling only) to bound what any cheaper
 exact sampler (e.g. a table+IS draw) could recover.
 
-Run on TPU (one process at a time!):
+Run on the GPU (one process per card):
     python tools/profile_sampler.py --rounds 1 2 4
     python tools/profile_sampler.py --stub
 """
